@@ -5,7 +5,7 @@ The corpus (default 100M x 128, ~51 GB f32-equivalent) never exists on
 the device OR in host f32: it is generated chunk-by-chunk, hashed and
 packed host-side into global-scale int8 slabs (models/lsh/streamed.py),
 and a query batch is served by streaming one chunk's slabs at a time
-through the fused slab kernel with an on-device running top-k merge.
+through the windowed slab dots with an on-device running top-k merge.
 
 Ground truth is the planted protocol of io/synth.planted_clustered_corpus
 (each query's tk planted near-copies are the unambiguous top-k by a ~2x
@@ -44,13 +44,14 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax-bench")
+from crypto_rec_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from crypto_rec_tpu.models.lsh.streamed import (
     build_streamed_index, streamed_retrieve_topk,
 )
 from crypto_rec_tpu.ops.oracle import recall_at_k
-from crypto_rec_tpu.utils.timing import hard_sync
 
 
 def log(*a):
@@ -116,7 +117,7 @@ def main():
     log(f"host build: {build_s:.1f}s ({N / build_s / 1e6:.2f}M rows/s), "
         f"host bytes {sidx.host_bytes() / 1e9:.1f} GB")
 
-    qdev = hard_sync(jnp.asarray(queries))
+    qdev = jax.block_until_ready(jnp.asarray(queries))
     true_idx = jnp.asarray(
         (np.arange(n_planted) * stride).reshape(Q, TOPK))
 

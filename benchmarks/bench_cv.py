@@ -25,7 +25,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax-bench")
+from crypto_rec_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from crypto_rec_tpu.models.rec.engine import RatingSet
 from crypto_rec_tpu.models.rec.validate import ten_fold_mae

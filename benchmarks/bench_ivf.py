@@ -14,11 +14,12 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax-bench")
+from crypto_rec_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 import jax
-from crypto_rec_tpu.utils.timing import hard_sync
 import jax.numpy as jnp
 
 
@@ -47,7 +48,7 @@ def main() -> None:
     from crypto_rec_tpu.io.synth import planted_clustered_corpus
 
     corpus, queries, true_idx = planted_clustered_corpus(key, N, D, Q, TOPK)
-    corpus = hard_sync(corpus)
+    corpus = jax.block_until_ready(corpus)
     log("corpus ready")
 
     t0 = time.perf_counter()
@@ -56,7 +57,7 @@ def main() -> None:
         max_iterations=8, train_rows=min(TRAIN, N),
         block_dtype=jnp.bfloat16 if BF16 else None,
     )
-    hard_sync(index.blocks)
+    jax.block_until_ready(index.blocks)
     build_s = time.perf_counter() - t0
     cap = index.capacity
     log(f"ivf build (incl. compile): {build_s:.1f}s, capacity={cap}, "
@@ -75,7 +76,7 @@ def main() -> None:
     best = None
     for np_i in probes:
         vals, ids = ivf_retrieve_topk(index, queries, np_i, TOPK)
-        hard_sync(ids)
+        jax.block_until_ready(ids)
         times = []
         for _ in range(5):
             t0 = time.perf_counter()

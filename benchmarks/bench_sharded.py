@@ -1,13 +1,14 @@
 """Sharded-retrieval scaling benchmark (BASELINE.json config 4 analog).
 
-Runs the (dp, mp) sharded recommend and the all-to-all routed top-k on a
-device mesh and reports per-configuration throughput.  On this testbed only
-one real chip exists, so by default this runs on an 8-virtual-device CPU
-mesh — validating the sharded code path end-to-end and giving a scaling
-*shape* (not absolute chip numbers); on a real v5e-8 the same script
-measures true multi-chip throughput.
+Runs the (dp, mp) sharded recommend on the device mesh of the devices
+JAX finds and reports per-configuration throughput.  It needs at least two
+devices and stops with an error on fewer; to rehearse on a CPU, give the
+CPU backend virtual devices:
 
-Usage: python benchmarks/bench_sharded.py [--devices 8] [--rows 65536]
+  JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+      python benchmarks/bench_sharded.py
+
+Usage: python benchmarks/bench_sharded.py [--rows 65536]
 """
 
 from __future__ import annotations
@@ -23,46 +24,29 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--devices", type=int, default=8)
     ap.add_argument("--rows", type=int, default=65536)
     ap.add_argument("--queries", type=int, default=2048)
     ap.add_argument("--dim", type=int, default=64)
     ap.add_argument("--top-p", type=int, default=16)
-    ap.add_argument("--cpu", action="store_true", default=False,
-                    help="force the simulated CPU mesh (default when <2 real devices)")
     ap.add_argument("--kernel-point", action="store_true", default=False,
-                    help="real-chip mode: measure the PACKED kernel sharded "
-                         "engine on a 1-device mesh vs the local kernel path "
-                         "at the 2M bench operating point — pins the "
-                         "shard_map + all_gather merge overhead as a "
-                         "measured constant (VERDICT r3 task 9)")
+                    help="measure the packed sharded engine on a 1-device "
+                         "mesh vs the local windowed path at the 2M "
+                         "operating point: the shard_map + all_gather "
+                         "merge overhead")
     args = ap.parse_args()
+    from crypto_rec_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if args.kernel_point:
         kernel_point()
         return
 
-    # The platform choice must land BEFORE the first backend initialization
-    # (XLA reads --xla_force_host_platform_device_count at CPU client
-    # creation), so set env first and, in the auto-detect case, re-exec.
-    if args.cpu:
-        os.environ["XLA_FLAGS"] = (
-            os.environ.get("XLA_FLAGS", "")
-            + f" --xla_force_host_platform_device_count={args.devices}"
-        ).strip()
-        os.environ["JAX_PLATFORMS"] = "cpu"
-
     import jax
 
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
-    elif len(jax.devices()) < 2:
-        print("<2 real devices: re-running on the simulated CPU mesh",
-              file=sys.stderr)
-        os.execv(sys.executable,
-                 [sys.executable, os.path.abspath(__file__)]
-                 + sys.argv[1:] + ["--cpu"])
-
-    from crypto_rec_tpu.utils.timing import hard_sync
+    if len(jax.devices()) < 2:
+        sys.exit(f"bench_sharded needs >= 2 devices, found "
+                 f"{len(jax.devices())} ({jax.devices()[0].platform})")
+    block = jax.block_until_ready
 
     import jax.numpy as jnp
     import numpy as np
@@ -86,10 +70,10 @@ def main() -> None:
     # single-device baseline
     t0 = time.perf_counter()
     rec1 = recommend(queries, neighbors, mk, top_p=args.top_p, top_n=5)
-    hard_sync(rec1.predicted)
+    block(rec1.predicted)
     t0 = time.perf_counter()
     rec1 = recommend(queries, neighbors, mk, top_p=args.top_p, top_n=5)
-    hard_sync(rec1.predicted)
+    block(rec1.predicted)
     results["single"] = time.perf_counter() - t0
 
     for mp in (2, 4, len(devs)):
@@ -98,10 +82,10 @@ def main() -> None:
         mesh = make_mesh((1, mp), devices=devs[:mp])
         nb = shard_rating_set(mesh, neighbors, "mp")
         rec = sharded_recommend(mesh, queries, nb, mk, top_p=args.top_p, top_n=5)
-        hard_sync(rec.predicted)
+        block(rec.predicted)
         t0 = time.perf_counter()
         rec = sharded_recommend(mesh, queries, nb, mk, top_p=args.top_p, top_n=5)
-        hard_sync(rec.predicted)
+        block(rec.predicted)
         results[f"mp={mp}"] = time.perf_counter() - t0
         # parity vs single-device
         np.testing.assert_allclose(
@@ -120,20 +104,18 @@ def main() -> None:
 
 
 def kernel_point() -> None:
-    """Real-chip comparison at the 2M operating point: local fused kernel
-    retrieval vs the sharded engine on a 1-device (dp=1, mp=1) mesh.
+    """Comparison at the 2M operating point: local windowed retrieval vs
+    the sharded engine on a 1-device (dp=1, mp=1) mesh.
 
-    Single-chip mp=1 makes the shard_map body identical work to the local
-    path, so sharded_qps / local_qps isolates the shard_map + all_gather
-    merge machinery — the only multi-chip-adjacent perf constant this
-    1-chip testbed can measure."""
+    mp=1 makes the shard_map body identical work to the local path, so
+    sharded_qps / local_qps isolates the shard_map + all_gather merge
+    machinery."""
     import time
 
     import numpy as np
     import jax
     import jax.numpy as jnp
 
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax-bench")
     from crypto_rec_tpu.io.synth import planted_clustered_corpus
     from crypto_rec_tpu.models.lsh.index import (
         build_index, pack_index, retrieve_topk_pallas,
@@ -144,7 +126,7 @@ def kernel_point() -> None:
         build_sharded_index, pack_sharded_index, shard_corpus,
         sharded_retrieve_topk,
     )
-    from crypto_rec_tpu.utils.timing import hard_sync
+    block = jax.block_until_ready
 
     N = int(os.environ.get("BENCH_N", 2_000_000))
     D, Q, K, L, PT, TOPK = 128, 8192, 13, 8, 488, 10
@@ -155,22 +137,22 @@ def kernel_point() -> None:
             del out
             t0 = time.perf_counter()
             out = fn()
-            hard_sync(out)
+            block(out)
             times.append(time.perf_counter() - t0)
         return float(np.median(times))
 
     key = jax.random.PRNGKey(0)
     corpus, queries, true_idx = planted_clustered_corpus(key, N, D, Q, TOPK)
-    corpus, queries = hard_sync(corpus), hard_sync(queries)
+    corpus, queries = block(corpus), block(queries)
 
     # local kernel path
     idx = build_index(jax.random.PRNGKey(1), corpus, "cosine", K, L,
                       lsh_bucket_div=4, euclidean_h_w=1.0)
     pidx = pack_index(idx, corpus, dtype=jnp.int8)
-    hard_sync(jax.tree_util.tree_leaves(pidx))
+    block(jax.tree_util.tree_leaves(pidx))
     run_local = lambda: retrieve_topk_pallas(
         pidx, queries, corpus, top_k=TOPK, per_table=PT, int8_rerank=False)
-    hard_sync(run_local())
+    block(run_local())
     t_local = timed(run_local)
     _s, lids = run_local()
     local_rec = float(recall_at_k(lids, true_idx))
@@ -182,11 +164,11 @@ def kernel_point() -> None:
     sidx = build_sharded_index(
         mesh, jax.random.PRNGKey(1), corpus_sh, "cosine", K, L)
     sidx = pack_sharded_index(mesh, sidx, corpus_sh, dtype=jnp.int8)
-    hard_sync(jax.tree_util.tree_leaves(sidx))
+    block(jax.tree_util.tree_leaves(sidx))
     run_sh = lambda: sharded_retrieve_topk(
         mesh, sidx, queries, corpus_sh, budget=1024, top_k=TOPK,
         per_table=PT, int8_rerank=False)
-    hard_sync(run_sh())
+    block(run_sh())
     t_sh = timed(run_sh)
     _ss, sids = run_sh()
     sh_rec = float(recall_at_k(sids, true_idx))

@@ -1,4 +1,4 @@
-"""crypto_rec_tpu — a TPU-native crypto-recommendation framework.
+"""crypto_rec_tpu — a JAX crypto-recommendation framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 YannisLamp/crypto-recommendation (reference: /root/reference, C++11,
@@ -14,7 +14,7 @@ single-threaded CPU):
   (reference: lib/crypto_rec.hpp:213-449, main.cpp:393-437)
 
 Design: everything is batched, statically shaped, and jit-compiled.  Hashing
-is matmul (MXU), buckets are integer arrays, candidate sets are masks or
+is matmul, buckets are integer arrays, candidate sets are masks or
 fixed-budget CSR gathers, and multi-chip scale goes through jax.sharding
 meshes + collectives instead of pointers and loops.
 """

@@ -95,7 +95,9 @@ def save_index(path: str, index: LshIndex) -> None:
         arr = getattr(index, f)
         if arr is not None:
             arrays[f], meta["packed_dtypes"][f] = _encode(arr)
-    np.savez_compressed(path, meta=json.dumps(meta), **arrays)
+    # uncompressed: packed int8/bf16 slabs barely compress, and zlib over
+    # gigabytes of slab costs minutes on save and load
+    np.savez(path, meta=json.dumps(meta), **arrays)
 
 
 def load_index(path: str) -> LshIndex:
@@ -265,7 +267,7 @@ def load_user_matrix(path: str) -> UserMatrix:
 
 
 def index_nbytes(index: LshIndex) -> int:
-    """Device-memory accounting for the index — the TPU analog of the
+    """Device-memory accounting for the index — the device analog of the
     reference's hand-rolled getSize() byte counters
     (/root/reference/lib/data_structures/cust_hashtable.hpp:128-138)."""
     total = 0

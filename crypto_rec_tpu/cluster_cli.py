@@ -46,7 +46,10 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    from crypto_rec_tpu.utils.compile_cache import enable_compile_cache
+
     args = build_argparser().parse_args(argv)
+    enable_compile_cache()
     cfg = RecConfig(seed=args.seed)
     if args.config_file:
         cfg = load_config(args.config_file, cfg)

@@ -42,12 +42,11 @@ class RecConfig:
     lexicon_file: str = ""
     query_file: str = ""
 
-    # --- engine knobs new to the TPU build ---
+    # --- engine knobs new to this build ---
     seed: int = 0
     candidate_budget: int = 256    # fixed per-query candidate budget for CSR path
     topP: int = 20                 # P; usually overridden by the dataset header line
     block_rows: int = 4096         # row-block size for blocked distance matmuls
-    use_pallas: Optional[bool] = None  # None => auto (pallas on TPU)
     # LSH candidate engine for the pipeline's LSH phases:
     #   "mask" — dense [q, n] candidate mask, exact reference semantics,
     #            O(q*n) memory (fine to ~10^5 users);
@@ -62,8 +61,8 @@ class RecConfig:
     #   "auto" — csr when the mask would exceed ~256 MB, else mask.
     engine: str = "auto"
     # Slab dtype for the fused engine's packed index ("float32" at
-    # reference scale; "bfloat16"/"int8" halve/quarter slab HBM at large
-    # user counts — recall tradeoffs measured in BENCH_r0*.json).
+    # reference scale; "bfloat16"/"int8" halve/quarter slab memory at
+    # large user counts, at a quantization cost to recall).
     pack_dtype: str = "float32"
 
     def replace(self, **kw) -> "RecConfig":

@@ -8,10 +8,10 @@ Reference semantics (/root/reference/lib/data_structures/tweet.cpp:11-42):
   a lexicon word is never coin-checked — kept for parity);
 * final score = total / sqrt(total^2 + alpha), alpha = 15 (tweet.cpp:40-41).
 
-TPU-first shape: instead of one Tweet object per line we produce flat arrays
+Batched shape: instead of one Tweet object per line we produce flat arrays
 (tweet -> user index, tweet -> score, and a flattened (tweet, coin) pair list)
 that feed straight into segment-sum user-matrix builds (io/users.py).  A C++
-fast path with identical semantics lives in native/ingest.cpp for pod-scale
+fast path with identical semantics lives in native/ingest.cpp for multi-host
 ingest; this module is the reference implementation and fallback.
 """
 

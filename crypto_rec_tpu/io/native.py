@@ -3,8 +3,9 @@
 The reference's entire ingest is C++ (/root/reference/lib/utils.cpp:73-147,
 lib/data_structures/tweet.cpp); our hot path matches that with a compiled
 tokenizer+scorer whose output arrays are asserted identical to the Python
-implementation (io/ingest.py) in tests.  The library is built on first use
-with g++ -O3 and cached next to the source.
+implementation (io/ingest.py) in tests.  The library is a build output (not
+committed): it is built from native/ingest.cpp on first use with g++ -O3
+and cached next to the source.
 """
 
 from __future__ import annotations
@@ -27,11 +28,15 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def _build() -> None:
+    # build beside the target and rename into place, so a concurrent
+    # process never loads a half-written library
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
     subprocess.run(
-        ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", _SRC, "-o", _LIB],
+        ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", _SRC, "-o", tmp],
         check=True,
         capture_output=True,
     )
+    os.replace(tmp, _LIB)
 
 
 def load_library(rebuild: bool = False) -> ctypes.CDLL:

@@ -8,7 +8,7 @@ Covers the reference's reader surface:
   strips trailing '\r') — lib/in_out/vector_reader.hpp:55-85
 
 These run on host once per job; the arrays they produce are what moves to
-device.  For pod-scale ingest the native C++ tokenizer (native/ingest.cpp)
+device.  For multi-host-scale ingest the native C++ tokenizer (native/ingest.cpp)
 takes over; these remain the reference semantics and the fallback.
 """
 

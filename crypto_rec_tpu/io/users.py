@@ -12,7 +12,7 @@ Reference semantics (/root/reference/lib/crypto_rec.hpp:78-210):
   cluster id each tweet's embedding fell into (one "virtual user" per
   cluster, crypto_rec.hpp:143-210).
 
-TPU-first shape: the pointer-per-user objects become one dense
+Batched shape: the pointer-per-user objects become one dense
 ``ratings [n, c]`` matrix plus a ``known [n, c]`` mask and ``mean [n]``
 vector — exactly the operands the downstream matmul kernels want.  The
 accumulation itself is a scatter-add (np.add.at host-side; tiny compared to

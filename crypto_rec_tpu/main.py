@@ -43,7 +43,10 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    from crypto_rec_tpu.utils.compile_cache import enable_compile_cache
+
     args = build_argparser().parse_args(argv)
+    enable_compile_cache()
     cfg = load_config(args.config_file, RecConfig(seed=args.seed))
     if args.engine is not None:
         cfg = cfg.replace(engine=args.engine)

@@ -13,7 +13,7 @@ Reference (/root/reference/lib/clustering_phases/assignment.hpp):
   (:211-212 sit inside the centroid loop), so later centroids search wider
   windows in the same round; we double once per round.
 
-TPU-first: Lloyd is one [n, d] x [d, k] distance matmul + argmin.  Range
+Batched form: Lloyd is one [n, d] x [d, k] distance matmul + argmin.  Range
 assignment is a lax.while_loop whose body does one dense masked window
 update per round — no per-point loops, distances computed once up front.
 """
@@ -33,13 +33,18 @@ from crypto_rec_tpu.ops.distances import pairwise_distances
 # backend at import, breaking jax.distributed.initialize (multi-host)
 UNASSIGNED = np.int32(-1)
 
+# assignment is an argmin over distances: at DEFAULT precision a GPU may
+# compute them in TF32 and flip near-tied points between clusters, which
+# changes recommendations by device (ops/distances.py)
+HIGHEST = jax.lax.Precision.HIGHEST
+
 
 @functools.partial(jax.jit, static_argnames=("metric",))
 def lloyd_assign(
     x: jax.Array, centroids: jax.Array, metric: str
 ) -> Tuple[jax.Array, jax.Array]:
     """[n, d] x [k, d] -> (labels [n] int32, dist-to-centroid [n])."""
-    d = pairwise_distances(x, centroids, metric)
+    d = pairwise_distances(x, centroids, metric, precision=HIGHEST)
     labels = jnp.argmin(d, axis=1).astype(jnp.int32)
     dists = jnp.min(d, axis=1)
     return labels, dists
@@ -78,12 +83,12 @@ def range_assign(
     Returns (labels, dists) with -1 labels for never-reached points.
     """
     n = x.shape[0]
-    d = pairwise_distances(centroids, x, metric)          # [k, n], once
+    d = pairwise_distances(centroids, x, metric, precision=HIGHEST)  # [k, n]
     d_masked = jnp.where(cand_mask, d, jnp.inf)
 
     # Initial radius: min pairwise centroid distance / 2
     # (find_min_vector_distance, utils.hpp:161-178).
-    dcc = pairwise_distances(centroids, centroids, metric)
+    dcc = pairwise_distances(centroids, centroids, metric, precision=HIGHEST)
     k = centroids.shape[0]
     dcc = jnp.where(jnp.eye(k, dtype=bool), jnp.inf, dcc)
     r0 = jnp.min(dcc) / 2.0

@@ -9,7 +9,7 @@ Reference (/root/reference/lib/clustering_phases/initialization.hpp):
   keeps the same sampling distribution as plain D^2 (the max cancels), so
   this IS standard k-means++.
 
-TPU-first: the reference recomputes (with a string-keyed memo map) every
+Batched form: the reference recomputes (with a string-keyed memo map) every
 point-to-centroid distance each round — O(n * k^2) distance evaluations.  We
 keep a running elementwise min, so each round is ONE [n, d] x [d, 1] distance
 computation: O(n * k) total, fully fused under one jit with a fori_loop.
@@ -42,7 +42,8 @@ def kmeans_pp_init(
     def body(i, state):
         chosen, min_d, key = state
         last = jax.lax.dynamic_index_in_dim(x, chosen[i - 1], keepdims=True)
-        d = pairwise_distances(x, last, metric)[:, 0]
+        d = pairwise_distances(
+            x, last, metric, precision=jax.lax.Precision.HIGHEST)[:, 0]
         min_d = jnp.minimum(min_d, d)
         # Normalize by max, square, prefix-sum, uniform draw, binary search
         # (initialization.hpp:118-152).

@@ -5,7 +5,7 @@ Mirrors the reference's driver loop (/root/reference/main.cpp:96-103,
 and k-means update until the update reports convergence (no centroid moved
 more than min_dist) or max_algo_iterations is hit.
 
-TPU-first: the whole loop is ONE jit — a lax.while_loop whose body is a
+Batched form: the whole loop is ONE jit — a lax.while_loop whose body is a
 distance matmul + argmin + segment-sum.  Nothing crosses back to host until
 the final labels.
 """

@@ -8,7 +8,7 @@ Reference (/root/reference/lib/clustering_phases/silhouette.hpp):
 * returns per-cluster mean silhouettes plus the global mean in the last
   slot (:64-80).
 
-TPU-first: the reference's memoized O(n^2) pair loops become blocked
+Batched form: the reference's memoized O(n^2) pair loops become blocked
 [block, n] distance matmuls; per-cluster sums are one [block, n] x [n, k]
 one-hot matmul per block — HBM-streaming, no distance is stored twice.
 This is the "blockwise distance computation over a sharded candidate axis"

@@ -9,7 +9,7 @@ Reference (/root/reference/lib/clustering_phases/update.hpp):
   intra-cluster distance; swap if it differs from the current centroid
   (:90-142).
 
-TPU-first: the member-mean is a segment_sum (one scatter-add) instead of a
+Batched form: the member-mean is a segment_sum (one scatter-add) instead of a
 pointer walk; the PAM cost matrix is a blocked [n, n] distance product
 against a one-hot label matrix, so per-cluster sums are one matmul.
 Deviation: an empty cluster keeps its previous centroid — the reference's
@@ -26,6 +26,10 @@ import jax
 import jax.numpy as jnp
 
 from crypto_rec_tpu.ops.distances import pairwise_distances
+
+# cluster membership is decided by comparing distances: HIGHEST keeps a
+# GPU from deciding it in TF32 (see cluster/assign.py)
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @functools.partial(jax.jit, static_argnames=("k", "metric"))
@@ -45,7 +49,8 @@ def kmeans_update(
 
     # Per-centroid movement: diagonal of the pairwise metric.
     moved = jax.vmap(
-        lambda a, b: pairwise_distances(a[None], b[None], metric)[0, 0]
+        lambda a, b: pairwise_distances(
+            a[None], b[None], metric, precision=HIGHEST)[0, 0]
     )(new_c, old_centroids)
     cont = jnp.any(moved > min_dist)
     # Reference: if any center moved, swap all; else keep old and stop.
@@ -76,8 +81,9 @@ def pam_update(
     blocks = xp.reshape(-1, block_rows, x.shape[1])
 
     def block_cost(blk):
-        d = pairwise_distances(blk, x, metric)                # [b, n]
-        return jnp.dot(d, onehot, preferred_element_type=jnp.float32)  # [b, k]
+        d = pairwise_distances(blk, x, metric, precision=HIGHEST)  # [b, n]
+        return jnp.dot(d, onehot, precision=HIGHEST,
+                       preferred_element_type=jnp.float32)      # [b, k]
 
     costs = jax.lax.map(block_cost, blocks).reshape(-1, k)[:n]
     own_cost = jnp.take_along_axis(costs, labels[:, None], axis=1)[:, 0]

@@ -3,7 +3,7 @@
 The "clustered re-ranking" leg of BASELINE.json config 5.  Where LSH gathers
 scattered bucket members (random-access HBM reads), IVF reorders the corpus
 so each cluster is one CONTIGUOUS block of rows — a probe reads whole blocks
-at streaming bandwidth, which is the layout TPUs want.  The clustering
+at streaming bandwidth.  The clustering
 engine is this framework's own k-means (models/cluster/kmeans.py), i.e. the
 reference's clustering capability redeployed as an index structure.
 
@@ -63,8 +63,7 @@ class IvfIndex:
     jax.jit, static_argnames=("n_clusters", "capacity", "dtype")
 )
 def _pack_blocks(corpus, labels, n_clusters: int, capacity: int, dtype=None):
-    """Device-side block packing under ONE jit dispatch (eager op-by-op
-    dispatch costs ~1s/op on the remote-execution testbed): sort rows by
+    """Device-side block packing under ONE jit dispatch: sort rows by
     cluster, scatter into capacity-padded slots (overflow to a dump slot
     past the table), one gather to fill the blocks."""
     n = corpus.shape[0]

@@ -231,7 +231,7 @@ def pack_cube(
 
     augment=True (euclidean only): the AUGMENTED rank layout of
     pack_index — raw rows plus a -|x|^2/2 column, one global scale — so
-    euclidean cube probing rides the shared-slab kernel (the plain dot
+    euclidean cube probing rides the shared-slab windowed dots (the plain dot
     against [q, aug_scale, 0...] is the monotone euclidean rank)."""
     n = cube.n_rows
     d = corpus.shape[1]
@@ -325,6 +325,10 @@ def cube_retrieve_topk(
     actually likely to land in.  directed=False restores the reference's
     Hamming-order schedule (lsh_cube.hpp:139-177) for parity.
 
+    approx_stage1=True selects the production path on cosine scale-free
+    slabs (maskless shared-slab windowed dots + approximate stage-1);
+    augmented euclidean slabs always ride the windowed dots.
+
     -> (scores [q, top_k] descending nearest-first, row ids [q, top_k]).
     """
     from crypto_rec_tpu.models.lsh.index import (
@@ -334,42 +338,22 @@ def cube_retrieve_topk(
     if cube.packed is None:
         raise ValueError("pack_cube first (packed layout required)")
     quantized = jnp.issubdtype(cube.packed.dtype, jnp.integer)
-    # cosine scale-free slabs ride the fused slab kernel: the `probes`
-    # vertex windows of a query are regrouped as probes/8 REPLICATED query
-    # rows of 8 windows each, so the shared-slab kernel form streams them
-    # with the same DMA pipeline as the 8-table LSH index (no [q, T*B, W,
-    # d] gather temporary).  Scale-free = bf16 or global-scale int8.
-    from crypto_rec_tpu.models.lsh.index import resolve_use_pallas
-
-    use_kernel = (
-        cube.metric == "cosine"
-        and cube.packed_scale is None
-        and cube.packed.shape[-1] % 128 == 0
-        and cube.packed.shape[1] >= per_probe + 160
-        and probes % 8 == 0
-    )
-    if use_kernel:
+    # approx_stage1 on cosine scale-free slabs (bf16/f32 or global-scale
+    # int8) takes the production path: maskless shared-slab windowed dots
+    # (the `probes` vertex windows of a query all read the one vertex-CSR
+    # slab) + approximate stage-1.  Otherwise the blocked core below keeps
+    # the exact probe-union semantics.
+    if (cube.metric == "cosine" and cube.packed_scale is None
+            and approx_stage1):
         return _cube_retrieve_kernel(
             cube, queries, corpus, top_k, probes, per_probe,
-            interpret=not resolve_use_pallas(None), directed=directed,
-        )
-    if (
-        cube.metric == "euclidean"
-        and cube.packed_aug_scale is not None
-        and cube.packed.shape[-1] % 128 == 0
-        and cube.packed.shape[1] >= per_probe + 160
-        and probes % 8 == 0
-    ):
-        # augmented slabs: euclidean probing rides the shared-slab kernel
-        # (rank dot), the same pipeline the euclidean LSH tables use
-        return _cube_retrieve_kernel_euclid(
-            cube, queries, top_k, probes, per_probe,
-            interpret=not resolve_use_pallas(None), directed=directed,
+            directed=directed,
         )
     if cube.packed_aug_scale is not None:
-        raise ValueError(
-            "augmented cube slabs are kernel-only (probes % 8 == 0 and "
-            "128-multiple padded width required)"
+        # augmented slabs: euclidean probing rides the same windowed dots
+        # (rank dot) the euclidean LSH tables use
+        return _cube_retrieve_kernel_euclid(
+            cube, queries, top_k, probes, per_probe, directed=directed,
         )
     masks = jnp.asarray(hamming_probe_order(cube.k, probes))  # [p]
     core_k = min(4 * top_k, probes * top_k) if quantized else top_k
@@ -409,17 +393,14 @@ def _cube_retrieve_kernel_euclid(
     top_k: int,
     probes: int,
     per_probe: int,
-    group: int = 8,
-    interpret: bool = False,
     directed: bool = True,
 ):
-    """Euclidean hypercube probing on the shared-slab kernel over the
-    AUGMENTED layout (pack_cube augment=True): the plain dot of the
+    """Euclidean hypercube probing on the shared-slab windowed dots over
+    the AUGMENTED layout (pack_cube augment=True): the plain dot of the
     augmented query against a slab row is the monotone rank x.q - |x|^2/2,
-    so the probe windows stream through the identical maskless DMA
-    pipeline as the cosine cube; per-window stage-1 + id-dedup epilogue
-    (the multicube lesson), then the top_k ranks are dequantized and
-    mapped to -distance."""
+    so the probe windows take the identical maskless path as the cosine
+    cube; per-window stage-1 + id-dedup epilogue (the multicube lesson),
+    then the top_k ranks are dequantized and mapped to -distance."""
     from crypto_rec_tpu.ops.pallas.slabscore import (
         _dedup_topk_pairs, slab_window_dots,
     )
@@ -458,16 +439,11 @@ def _cube_retrieve_kernel_euclid(
         ],
         axis=1,
     )
-    R = probes // group
-    dots, a0 = slab_window_dots(
-        cube.packed, None,
-        s0.reshape(q * R, group), sizes.reshape(q * R, group),
-        jnp.repeat(q_aug, R, axis=0),
-        per_table=per_probe, interpret=interpret, mask=False,
-        shared_slab=True,
-    )                                                 # [q*R, group, win]
+    dots, a_flat = slab_window_dots(
+        cube.packed, None, s0, sizes, q_aug,
+        per_table=per_probe, mask=False, shared_slab=True,
+    )                                                 # [q, probes, win]
     win = dots.shape[2]
-    a_flat = a0.reshape(q, probes)
     kk = min(top_k, win)
     rows2 = dots.reshape(q * probes, win)
     s1, lane = jax.lax.approx_max_k(rows2, kk, recall_target=0.9)
@@ -498,16 +474,16 @@ class MultiCube:
     A single cube's recall ceiling is structural: query-directed probing
     enumerates subsets of the m least-confident bits, so a true neighbor
     that differs in a CONFIDENT bit is unreachable at any probe budget
-    (measured plateau ~0.978 at the 2M bench point for k=13 AND k=14,
-    probes 16..48 — probe_r5_cube.py).  C independent cubes make those
-    misses independent: 1 - (1 - 0.978)^2 ~ 0.9995.  Probing runs the
-    shared-slab kernel ONCE over all C x probes windows (each cube's
-    windows offset into its own slab segment), so the union costs one
-    kernel launch, not C.
+    (recall plateaus near 0.978 on the 2M planted corpus for k=13 AND
+    k=14, probes 16..48).  C independent cubes make those misses
+    independent: 1 - (1 - 0.978)^2 ~ 0.9995.  Probing runs the
+    shared-slab windowed dots ONCE over all C x probes windows (each
+    cube's windows offset into its own slab segment), so the union costs
+    one call, not C.
 
     Euclidean cubes use the AUGMENTED slab layout (pack_cube
     augment=True): each segment carries raw rows plus the -|x|^2/2
-    column, so the same plain-dot kernel computes the monotone euclidean
+    column, so the same plain dot computes the monotone euclidean
     rank — the scales are identical across segments (same row set)."""
 
     metric: str
@@ -578,7 +554,7 @@ def build_multicube(
 
 @functools.partial(
     jax.jit,
-    static_argnames=("top_k", "probes", "per_probe", "directed", "group"),
+    static_argnames=("top_k", "probes", "per_probe", "directed"),
 )
 def multicube_retrieve_topk(
     mc: MultiCube,
@@ -587,17 +563,15 @@ def multicube_retrieve_topk(
     probes: int,          # PER-CUBE probe count
     per_probe: int = 256,
     directed: bool = True,
-    group: int = 8,
 ):
-    """Union retrieval over C cubes in ONE shared-slab kernel launch:
+    """Union retrieval over C cubes in ONE shared-slab windowed-dots call:
     each cube contributes its `probes` (directed) vertex windows, offset
-    into its slab segment; the maskless DMA pipeline + approx stage-1 +
+    into its slab segment; the maskless windows + approx stage-1 +
     id-dedup epilogue are exactly the LSH production path.  Euclidean
     multicubes ride the augmented rank layout (plain dot = monotone
     x.q - |x|^2/2), scores mapped to -distance after the dedup.
 
     -> (scores [q, top_k] descending nearest-first, row ids, -1 pad)."""
-    from crypto_rec_tpu.models.lsh.index import resolve_use_pallas
     from crypto_rec_tpu.ops.pallas.slabscore import (
         _dedup_topk_pairs, slab_window_dots,
     )
@@ -605,8 +579,6 @@ def multicube_retrieve_topk(
     C, n_pad = mc.n_cubes, mc.n_pad
     q, d = queries.shape
     T = C * probes
-    if T % group:
-        raise ValueError(f"n_cubes*probes={T} must divide group={group}")
     qv = queries.astype(jnp.float32)
     if mc.metric == "cosine":
         qv = qv / jnp.maximum(
@@ -654,21 +626,15 @@ def multicube_retrieve_topk(
     s0 = jnp.concatenate(s0_l, axis=1)        # [q, T]
     sizes = jnp.concatenate(sz_l, axis=1)
 
-    R = T // group
-    dots, a0 = slab_window_dots(
-        mc.packed, None,
-        s0.reshape(q * R, group), sizes.reshape(q * R, group),
-        jnp.repeat(q_kernel, R, axis=0),
+    dots, a_flat = slab_window_dots(
+        mc.packed, None, s0, sizes, q_kernel,
         per_table=per_probe, mask=False, shared_slab=True,
-        interpret=not resolve_use_pallas(None),
-    )                                         # [q*R, group, win]
+    )                                         # [q, T, win]
     win = dots.shape[2]
     # PER-WINDOW stage 1 (the LSH production epilogue, slab_topk's
     # per-table branch with absolute window offsets): a flat approx
     # selector over all T windows loses duplicate-crowded near-ties (a
-    # twin found by BOTH cubes occupies two survivor slots) — measured
-    # 0.82 vs 0.98 on the CPU oracle test before this form.
-    a_flat = a0.reshape(q, T)
+    # twin found by BOTH cubes occupies two survivor slots).
     kk = min(top_k, win)
     rows2 = dots.reshape(q * T, win)
     s1, lane = jax.lax.approx_max_k(rows2, kk, recall_target=0.9)
@@ -724,16 +690,13 @@ def _cube_retrieve_kernel(
     top_k: int,
     probes: int,
     per_probe: int,
-    group: int = 8,
-    interpret: bool = False,
     directed: bool = True,
 ):
-    """Cosine hypercube probing on the fused slab kernel (shared-slab
-    form): each query's `probes` vertex windows are regrouped as
-    probes/group replicated query rows of `group` windows, streamed by the
-    same DMA pipeline as the LSH index's L tables.  Maskless multiprobe +
-    approx stage-1 + id-dedup, exactly the cosine production epilogue;
-    global-scale int8 dots are dequantized with the stored scalar."""
+    """Cosine hypercube probing on the shared-slab windowed dots: each
+    query's `probes` vertex windows all read the one vertex-CSR slab.
+    Maskless multiprobe + approx stage-1 + id-dedup, exactly the cosine
+    production epilogue; global-scale int8 dots are dequantized with the
+    stored scalar."""
     from crypto_rec_tpu.ops.pallas.slabscore import (
         _dedup_topk_pairs, slab_window_dots,
     )
@@ -763,21 +726,15 @@ def _cube_retrieve_kernel(
     )
     sizes = jnp.minimum(end - s0, per_probe)
 
-    R = probes // group
-    s0r = s0.reshape(q * R, group)
-    sizesr = sizes.reshape(q * R, group)
-    qvr = jnp.repeat(qv, R, axis=0)                               # [q*R, d]
-    dots, a0 = slab_window_dots(
-        cube.packed, None, s0r, sizesr, qvr,
-        per_table=per_probe, interpret=interpret, mask=False,
-        shared_slab=True,
-    )                                                 # [q*R, group, win]
+    dots, a_flat = slab_window_dots(
+        cube.packed, None, s0, sizes, qv,
+        per_table=per_probe, mask=False, shared_slab=True,
+    )                                                 # [q, probes, win]
     win = dots.shape[2]
     flat = dots.reshape(q, probes * win)
-    m1 = min(max(4 * top_k, 2 * group), probes * win)
+    m1 = min(max(4 * top_k, 16), probes * win)
     s1, pos1 = jax.lax.approx_max_k(flat, m1, recall_target=0.9)
     # recover CSR positions: window t = pos1 // win, lane = pos1 % win
-    a_flat = a0.reshape(q, probes)
     t_of = pos1 // win
     lane = pos1 % win
     gpos = jnp.take_along_axis(a_flat, t_of, axis=1) + lane

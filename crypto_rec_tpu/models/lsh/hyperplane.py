@@ -7,11 +7,11 @@ Reference semantics:
   [0, 2^k) (cosine_g_gen.hpp:62-72);
 * L independent g-functions = L tables (lsh_cube.hpp:63-66).
 
-TPU-first: the reference's n * L * k virtual-dispatch dot products collapse
-into ONE [n, d] x [d, L*k] matmul followed by a sign + bit-pack reduction —
-the entire index-build hash cost rides the MXU.  A fused Pallas variant lives
-in ops/pallas/signproj.py; this module is the XLA form (which XLA already
-fuses well) and the source of truth for semantics.
+The reference's n * L * k virtual-dispatch dot products collapse into ONE
+[n, d] x [d, L*k] matmul followed by a sign + bit-pack reduction.  The
+projection runs at HIGHEST precision: bucket ids must not depend on the
+device (a checkpoint built on one machine is served on another), and a
+TF32 product can flip the sign bit of a near-zero projection.
 """
 
 from __future__ import annotations
@@ -48,7 +48,9 @@ class CosineLsh:
     def hash_bits(self, x: jax.Array) -> jax.Array:
         """[n, d] -> [n, L, k] int32 sign bits (1 iff r.x >= 0)."""
         proj = jnp.dot(
-            x.astype(jnp.float32), self.proj, preferred_element_type=jnp.float32
+            x.astype(jnp.float32), self.proj,
+            precision=jax.lax.Precision.HIGHEST,
+            preferred_element_type=jnp.float32,
         )
         bits = (proj >= 0.0).astype(jnp.int32)
         return bits.reshape(x.shape[0], self.L, self.k)

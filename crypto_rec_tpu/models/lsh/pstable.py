@@ -14,16 +14,14 @@ Reference semantics:
   query only matches bucket members whose full k-tuple equals its own
   (euclidean_phi_gen.hpp:83-94, cust_hashtable.hpp:73-103).
 
-TPU-first: h-values for all n vectors, L tables and k functions come from a
-single [n, d] x [d, L*k] matmul + floor; phi is a tiny weighted reduction.
+h-values for all n vectors, L tables and k functions come from a single
+[n, d] x [d, L*k] matmul + floor; phi is a tiny weighted reduction.
 The "detailed hash" filter stores ONE int32 murmur-style FINGERPRINT of the
 k-tuple per (row, table) instead of the raw [n, L, k] tuples — equality of
 fingerprints stands in for equality of tuples.  Two reasons:
 
-* memory/layout: [n, L, k] int32 with a tiny k minor dim pads 128/k x under
-  the TPU's (8, 128) tiling (measured 15.3 GiB for s32[2M, 16, 5] — a 25.6x
-  expansion that OOMs a v5e chip); the [L, n] fingerprint plane pads not at
-  all and is k x smaller unpadded;
+* memory: the [L, n] fingerprint plane is k x smaller than [n, L, k]
+  int32 tuples, and has no tiny minor dimension for a tiled layout to pad;
 * compare cost: the query-time filter is one int compare per candidate
   instead of k.
 
@@ -66,8 +64,12 @@ class PStableLsh:
 
     def hash_values(self, x: jax.Array) -> jax.Array:
         """[n, d] -> [n, L, k] int32 h-values: floor((v.x + t) / w)."""
+        # HIGHEST: bucket ids must not depend on the device (see
+        # hyperplane.CosineLsh.hash_bits)
         dots = jnp.dot(
-            x.astype(jnp.float32), self.proj, preferred_element_type=jnp.float32
+            x.astype(jnp.float32), self.proj,
+            precision=jax.lax.Precision.HIGHEST,
+            preferred_element_type=jnp.float32,
         ).reshape(x.shape[0], self.L, self.k)
         return jnp.floor((dots + self.offsets[None]) / self.w).astype(jnp.int32)
 

@@ -11,9 +11,9 @@ Reference math (/root/reference/lib/crypto_rec.hpp:213-345):
   (get_predicted_user_sim, crypto_rec.hpp:280-306);
 * top-N = the N highest-predicted unknown coins (crypto_rec.hpp:309-345).
 
-TPU-first: the whole per-user loop nest becomes, for a [q] batch of users
+Batched form: the whole per-user loop nest becomes, for a [q] batch of users
 against [n] candidates: one similarity matmul, one masked top-k, one gather,
-and one weighted contraction — MXU end to end.  A zero |sim| sum (possible
+and one weighted contraction — matmuls end to end.  A zero |sim| sum (possible
 when no candidate survives the mask) predicts the user mean instead of the
 reference's NaN (main.cpp:421-423 contains a leftover NaN debug check).
 """

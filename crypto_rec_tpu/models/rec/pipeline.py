@@ -1,4 +1,4 @@
-"""End-to-end recommendation pipeline — the TPU re-design of main.cpp.
+"""End-to-end recommendation pipeline — the batched re-design of main.cpp.
 
 Phases mirror /root/reference/main.cpp:36-390:
   0. cluster the "project 2" tweet embeddings (k-means++/Lloyd, cosine)
@@ -96,8 +96,6 @@ def lsh_phase(
     serving loop (or a pipeline run whose phases share an index set) builds
     and packs exactly once per distinct index.
     """
-    from crypto_rec_tpu.models.lsh.index import resolve_use_pallas
-
     cache_key = (np.asarray(key).tobytes(), id(index_set))
     cached = index_cache.get(cache_key) if index_cache is not None else None
     if cached is not None:
@@ -111,7 +109,6 @@ def lsh_phase(
             cfg.L,
             cfg.lsh_bucket_div,
             cfg.euclidean_h_w,
-            use_pallas=resolve_use_pallas(cfg.use_pallas),
         )
         if index_cache is not None:
             index_cache[cache_key] = index

@@ -16,7 +16,7 @@ into the known-index list but then hides that *position* in the dimension
 array (crypto_rec.hpp:410-412), and reseeds rand with time(0) per call; we
 hide a uniformly random known coin with an explicit jax.random key.
 
-TPU-first: each fold is one batched build + one batched query — no per-user
+Batched form: each fold is one batched build + one batched query — no per-user
 loops.  All folds share one jit cache entry (identical shapes).
 """
 

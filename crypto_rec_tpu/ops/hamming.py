@@ -5,7 +5,7 @@ query vertex with a recursive bit-flip search at query time
 (get_num_hamming_dist_from, /root/reference/lib/utils.cpp:22-50, driven by
 get_hypercube_combined_buckets, lib/lsh_cube.hpp:139-177).
 
-TPU-first: the schedule depends only on (k, probes), NOT on the query — the
+Batched form: the schedule depends only on (k, probes), NOT on the query — the
 probe vertex list is `query_vertex XOR flip_masks` for a fixed mask table.
 We precompute the masks host-side once (tiny: at most 2^k entries) and the
 query-time work becomes a single vectorized XOR + gather.

@@ -29,6 +29,8 @@ def exact_nearest(
     """Exact k-NN: [q, d] vs [n, d] -> (dists [q, k], idx [q, k]) ascending.
 
     Streams query blocks so the [q, n] distance matrix never materializes.
+    The distance matmul runs at HIGHEST precision: this is the ground
+    truth every recall is measured against, so it must not run in TF32.
     """
     q = queries.shape[0]
     pad = (-q) % block_rows
@@ -36,7 +38,8 @@ def exact_nearest(
     blocks = qp.reshape(-1, block_rows, queries.shape[1])
 
     def one_block(blk):
-        d = pairwise_distances(blk, index, metric)
+        d = pairwise_distances(
+            blk, index, metric, precision=jax.lax.Precision.HIGHEST)
         negd, idx = jax.lax.top_k(-d, k)
         return -negd, idx
 
@@ -57,9 +60,9 @@ def exact_nearest_streamed(
     """Exact k-NN streaming the CORPUS from host memory block by block.
 
     The oracle is a one-time verification, not the timed path — at 10M+
-    rows keeping a [n, d] f32 oracle corpus device-resident next to the
-    packed slabs is what blocked the L=6 10M configuration in round 3
-    (docs/SCALE.md).  This form holds only one [corpus_block, d] slice on
+    rows a device-resident [n, d] f32 oracle corpus competes with the
+    packed slabs for device memory.
+    This form holds only one [corpus_block, d] slice on
     device at a time and maintains a running (dist, global idx) top-k.
 
     -> (dists [q, k] ascending, idx [q, k]), identical to exact_nearest.

@@ -1,10 +1,4 @@
-"""Pallas TPU kernels (with XLA fallbacks and interpret-mode tests).
+"""Pallas kernels, each beside the plain XLA form that is its reference
+and its CPU path (see slabscore.window_dots_impl)."""
 
-BASELINE.json: "random-hyperplane LSH and hypercube probing are rebuilt as
-batched Pallas sign-projection matmul + bucket-gather kernels".  These
-kernels are optional accelerators — every call site keeps an XLA path that
-is the semantic source of truth, and tests assert elementwise equality.
-"""
-
-from crypto_rec_tpu.ops.pallas.signproj import signproj_bucket_ids  # noqa: F401
 from crypto_rec_tpu.ops.pallas.slabscore import packed_retrieve_pallas  # noqa: F401

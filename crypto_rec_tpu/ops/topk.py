@@ -4,7 +4,7 @@ Replaces the reference's recursive "parallel quicksort" that co-sorts a
 similarity array with its neighbor array (/root/reference/lib/
 crypto_rec.hpp:234-277) with `jax.lax.top_k`, which returns values and the
 permutation indexes in one fused op — gathering any payload (neighbor rows,
-ids) by index is the TPU-native form of "co-sorting pointers".
+ids) by index is the array form of "co-sorting pointers".
 """
 
 from __future__ import annotations

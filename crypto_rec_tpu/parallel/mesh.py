@@ -3,7 +3,7 @@
 The reference is single-threaded C++ with no distribution (SURVEY.md §2);
 this layer is new, mandated by BASELINE.json ("row/column-sharded embedding
 tables ... all-to-all lookup exchange ... pod-scale").  The comm backend is
-XLA collectives over ICI/DCN — the TPU-native NCCL equivalent — reached
+XLA collectives (NCCL over NVLink between the cards of a host) — reached
 through `jax.sharding.Mesh` + shard_map; there is no hand-written transport.
 
 Axis conventions:

@@ -7,7 +7,7 @@ Layout (the row/column-sharded embedding-table design from BASELINE.json):
 * each (dp, mp) mesh cell scores its query block against its index shard
   (local similarity matmul + local candidate mask + local top-P);
 * the per-shard top-P results — weights plus the P selected neighbor rating
-  rows — ride an all_gather over "mp" (ICI), and a second top-P picks the
+  rows — ride an all_gather over "mp" (interconnect), and a second top-P picks the
   global winners.  Communication per query is O(P * (c + 2)) floats, NOT the
   corpus, which is the point: collectives move candidates, not tables.
 
@@ -49,7 +49,7 @@ def distributed_topk(
 
     vals [q, k_local] descending per shard; payload_idx [q, k_local] global
     ids.  all_gather over `axis_name` -> re-top-k.  The classic two-stage
-    top-k (local reduce, ICI merge).
+    top-k (local reduce, all_gather merge).
     """
     g_vals = jax.lax.all_gather(vals, axis_name, axis=1)        # [q, S, k]
     g_idx = jax.lax.all_gather(payload_idx, axis_name, axis=1)  # [q, S, k]
@@ -89,7 +89,7 @@ def _sharded_recommend_impl(
         sel_mu = n_mu[safe]                      # [q_loc, P]
         vals = jnp.where(valid, vals, -jnp.inf)
 
-        # ---- merge across index shards (ICI all_gather over "mp") ----
+        # ---- merge across index shards (all_gather over "mp") ----
         S = jax.lax.axis_size("mp")
         g_vals = jax.lax.all_gather(vals, "mp", axis=1).reshape(vals.shape[0], -1)
         g_r = jax.lax.all_gather(sel_r, "mp", axis=1).reshape(

@@ -37,12 +37,12 @@ def build_argparser() -> argparse.ArgumentParser:
     r.add_argument(
         "--pack", action="store_true",
         help="attach the packed-slab layout after restore (L extra bf16 "
-             "corpus copies for ~3.5x retrieval throughput)",
+             "corpus copies, read as contiguous windows)",
     )
     r.add_argument(
         "--augment", action="store_true",
         help="with --pack on a euclidean index: norm-augmented slabs so "
-             "retrieval rides the fused slab kernel",
+             "retrieval rides the windowed slab dots",
     )
     r.add_argument(
         "--fast-int8", action="store_true",
@@ -140,7 +140,10 @@ def _recommend(args) -> int:
 
 
 def main(argv=None) -> int:
+    from crypto_rec_tpu.utils.compile_cache import enable_compile_cache
+
     args = build_argparser().parse_args(argv)
+    enable_compile_cache()
     return _retrieve(args) if args.mode == "retrieve" else _recommend(args)
 
 

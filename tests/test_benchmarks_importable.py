@@ -16,10 +16,9 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 
 SCRIPTS = sorted(
     list((REPO / "benchmarks").glob("*.py"))
-    + list((REPO / "benchmarks" / "experiments").glob("*.py"))
     + [
         REPO / "bench.py",
-        REPO / "__graft_entry__.py",
+        REPO / "chip_smoke.py",
         REPO / "crypto_rec_tpu" / "main.py",
         REPO / "crypto_rec_tpu" / "cluster_cli.py",
         REPO / "crypto_rec_tpu" / "serve_cli.py",

@@ -150,10 +150,8 @@ def test_sharded_augmented_roundtrip(tmp_path):
     np.testing.assert_allclose(
         np.asarray(idx2.packed_aug_scale), np.asarray(idx.packed_aug_scale))
     s1, i1 = sharded_retrieve_topk(
-        mesh, idx, queries, corpus_sh, budget=64, top_k=5, per_table=64,
-        pallas_interpret=True)
+        mesh, idx, queries, corpus_sh, budget=64, top_k=5, per_table=64)
     s2, i2 = sharded_retrieve_topk(
-        mesh, idx2, queries, corpus_sh, budget=64, top_k=5, per_table=64,
-        pallas_interpret=True)
+        mesh, idx2, queries, corpus_sh, budget=64, top_k=5, per_table=64)
     np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
     np.testing.assert_allclose(np.asarray(s1), np.asarray(s2), atol=1e-6)

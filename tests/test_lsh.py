@@ -401,9 +401,8 @@ def test_cube_retrieve_topk_int8_exact_rerank():
 
 
 def test_cube_retrieve_kernel_branch():
-    """probes % 8 == 0 and d % 128 == 0 route cosine cube retrieval
-    through the shared-slab kernel form (replicated-query window groups).
-    Its maskless windows are a candidate SUPERSET of the probe-union mask,
+    """approx_stage1=True routes cosine cube retrieval through the
+    shared-slab windowed dots.  Its maskless windows are a candidate SUPERSET of the probe-union mask,
     so scores must dominate the masked brute force rank-for-rank, planted
     twins must come back first, and ids must be valid + deduplicated."""
     from crypto_rec_tpu.models.lsh.hypercube import (
@@ -425,6 +424,7 @@ def test_cube_retrieve_kernel_branch():
         vals, ids = cube_retrieve_topk(
             cube, qs, x, top_k=tk, probes=probes, per_probe=256,
             directed=False,  # domination is against the HAMMING probe mask
+            approx_stage1=True,
         )
         vals, ids = np.asarray(vals), np.asarray(ids)
         assert (ids[:, 0] == target).all(), dt
@@ -461,15 +461,14 @@ def test_candidate_ids_scored_contains_topk():
                       lsh_bucket_div=4, euclidean_h_w=1.0)
     pidx = pack_index(idx, x, dtype=jnp.float32, pad=512)
     ids = np.asarray(candidate_ids_scored(
-        pidx, qs, budget=budget, per_table=128, use_pallas=False))
+        pidx, qs, budget=budget, per_table=128))
     assert ids.shape == (q, budget)
     assert ids.max() < n
     for row in ids:
         real = row[row >= 0]
         assert len(set(real.tolist())) == len(real)
     top_k = budget // L
-    _s, tids = retrieve_topk(pidx, qs, x, top_k=top_k, per_table=128,
-                             use_pallas=False)
+    _s, tids = retrieve_topk(pidx, qs, x, top_k=top_k, per_table=128)
     tids = np.asarray(tids)
     for qi in range(q):
         want = set(tids[qi][tids[qi] >= 0].tolist())
@@ -498,7 +497,7 @@ def test_candidate_ids_scored_euclidean_augmented():
                       lsh_bucket_div=4, euclidean_h_w=8.0)
     pidx = pack_index(idx, x, dtype=jnp.float32, pad=512, augment=True)
     ids = np.asarray(candidate_ids_scored(
-        pidx, qs, budget=budget, per_table=128, use_pallas=False))
+        pidx, qs, budget=budget, per_table=128))
     assert ids.shape == (q, budget)
     assert ids.max() < n
     for row in ids:
@@ -508,7 +507,7 @@ def test_candidate_ids_scored_euclidean_augmented():
     assert (ids[:, 0] == target).all()
     top_k = budget // L
     _s, tids = retrieve_topk(pidx, qs, x, top_k=top_k, per_table=128,
-                             use_pallas=False, int8_rerank=False)
+                             int8_rerank=False)
     tids = np.asarray(tids)
     for qi in range(q):
         want = set(tids[qi][tids[qi] >= 0].tolist())

@@ -1,41 +1,15 @@
-"""Pallas kernels vs their XLA reference paths (interpret mode on CPU)."""
+"""Windowed slab dots (ops/pallas/slabscore.py) in the retrieval wrappers
+vs the blocked XLA packed core (on the CPU the dots take the plain XLA
+form; tests/test_window_dots.py covers the Triton kernel itself)."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-from crypto_rec_tpu.models.lsh.hyperplane import CosineLsh
-from crypto_rec_tpu.ops.pallas.signproj import signproj_bucket_ids
-
-RNG = np.random.default_rng(23)
-KEY = jax.random.PRNGKey(3)
-
-
-def test_signproj_matches_xla():
-    k, L, d, n = 5, 3, 32, 300
-    fam = CosineLsh.create(KEY, d, k, L)
-    x = jnp.asarray(RNG.normal(size=(n, d)).astype(np.float32))
-    want = np.asarray(fam.bucket_ids(x))
-    got = np.asarray(
-        signproj_bucket_ids(x, fam.proj, k, L, block_rows=128, interpret=True)
-    )
-    np.testing.assert_array_equal(got, want)
-
-
-def test_signproj_ragged_rows():
-    k, L, d = 4, 2, 16
-    fam = CosineLsh.create(KEY, d, k, L)
-    x = jnp.asarray(RNG.normal(size=(77, d)).astype(np.float32))  # not a block multiple
-    want = np.asarray(fam.bucket_ids(x))
-    got = np.asarray(
-        signproj_bucket_ids(x, fam.proj, k, L, block_rows=64, interpret=True)
-    )
-    np.testing.assert_array_equal(got, want)
-
 
 class TestSlabScore:
-    """Interpret-mode parity of the fused slab-score retrieval vs the XLA
-    packed core (VERDICT r1 #1: bf16 AND int8)."""
+    """Parity of the windowed-dots retrieval vs the XLA packed core (bf16
+    AND int8)."""
 
     def _setup(self, dtype, scale_mode="auto"):
         from crypto_rec_tpu.models.lsh.index import build_index, pack_index
@@ -71,13 +45,12 @@ class TestSlabScore:
         # covered by test_maskless_dominates_strict)
         s_pal, ids_pal = packed_retrieve_pallas(
             pidx.packed, pidx.packed_rows, pidx.packed_scale,
-            pidx.bucket_starts, pidx.n_rows, qs, qb, 10, 200,
-            interpret=True, strict=True,
+            pidx.bucket_starts, pidx.n_rows, qs, qb, 10, 200, strict=True,
         )
         ids_ref, ids_pal = np.asarray(ids_ref), np.asarray(ids_pal)
         s_ref, s_pal = np.asarray(s_ref), np.asarray(s_pal)
         # the XLA core einsums in the slab dtype (bf16-rounded products),
-        # the kernel multiplies in exact f32 — scores agree only to the
+        # the windowed dots multiply in exact f32 — scores agree only to the
         # slab rounding band, and genuine near-ties may permute ids.  Same
         # contract as test_sharded_index.test_sharded_pallas_leg_matches_xla.
         diff = ids_ref != ids_pal
@@ -114,29 +87,31 @@ class TestSlabScore:
         self._parity(jnp.int8, scale_mode="row")
 
     def test_retrieve_topk_pallas_end_to_end(self):
-        """The wrapper (hash + kernel + dedup top-k + global-scale score
-        dequant) against retrieve_topk on the same packed index, interpret
-        mode, strict window semantics on both sides."""
+        """The wrapper (hash + windowed dots + dedup top-k + global-scale
+        score dequant) against the blocked XLA core on the same packed
+        index, strict window semantics on both sides."""
         from crypto_rec_tpu.models.lsh.index import (
-            retrieve_topk, retrieve_topk_pallas,
+            packed_retrieve_core, query_hashes, retrieve_topk_pallas,
         )
 
         pidx, x, qs = self._setup(jnp.int8)
         assert pidx.packed_gscale is not None  # global-scale stores the scalar
-        # int8_rerank=False on both sides: rank raw int8 dots, dequant the
-        # scores with the stored scalar (the fast large-margin mode)
-        s_x, i_x = retrieve_topk(
-            pidx, qs, x, top_k=8, per_table=200, use_pallas=False,
-            int8_rerank=False,
+        # int8_rerank=False: rank raw int8 dots, dequant the scores with the
+        # stored scalar (the fast large-margin mode)
+        qb, _ = query_hashes(pidx, qs)
+        s_x, i_x = packed_retrieve_core(
+            pidx.packed, pidx.packed_rows, None, None, pidx.bucket_starts,
+            pidx.n_rows, "cosine", qs, qb, None, 8, 200, 128,
         )
+        s_x = s_x * pidx.packed_gscale
         s_p, i_p = retrieve_topk_pallas(
-            pidx, qs, x, top_k=8, per_table=200, interpret=True, strict=True,
+            pidx, qs, x, top_k=8, per_table=200, strict=True,
             int8_rerank=False,
         )
         # both paths rank the same raw int8 dots and dequant by the same
-        # scalar; the XLA core rounds the QUERY to bf16 for the MXU while
-        # the kernel keeps it f32, so scores agree to the bf16 band and
-        # any id difference is a genuine near-tie
+        # scalar; the XLA core rounds the QUERY to bf16 while the windowed
+        # dots keep it f32, so scores agree to the bf16 band and any id
+        # difference is a genuine near-tie
         i_x, i_p = np.asarray(i_x), np.asarray(i_p)
         diff = i_x != i_p
         assert diff.mean() < 0.05, f"{diff.mean():.3f} ids differ"
@@ -155,10 +130,10 @@ class TestSlabScore:
 
         pidx, x, qs = self._setup(jnp.bfloat16)
         s_strict, i_strict = retrieve_topk_pallas(
-            pidx, qs, x, top_k=8, per_table=200, interpret=True, strict=True
+            pidx, qs, x, top_k=8, per_table=200, strict=True
         )
         s_prod, i_prod = retrieve_topk_pallas(
-            pidx, qs, x, top_k=8, per_table=200, interpret=True
+            pidx, qs, x, top_k=8, per_table=200
         )
         s_strict, s_prod = np.asarray(s_strict), np.asarray(s_prod)
         i_prod = np.asarray(i_prod)
@@ -168,30 +143,3 @@ class TestSlabScore:
         for row in i_prod:
             real = row[row >= 0]
             assert len(set(real.tolist())) == len(real)
-
-    def test_fused_l_matches_per_window_kernel(self):
-        """The fused-L kernel form (one step per query) must produce
-        bit-identical dots to the per-window form: both run the same VPU
-        f32 multiply + lane reduce over the same rows (verified bit-equal
-        on v5e hardware 2026-08-21; this pins it in interpret mode)."""
-        from crypto_rec_tpu.models.lsh.index import query_hashes
-        from crypto_rec_tpu.ops.pallas.slabscore import slab_window_dots
-
-        for dtype in (jnp.bfloat16, jnp.int8):
-            pidx, x, qs = self._setup(dtype)
-            qb, _ = query_hashes(pidx, qs)
-            L = pidx.packed.shape[0]
-            l_idx = jnp.arange(L, dtype=jnp.int32)
-            start = pidx.bucket_starts[l_idx[None, :], qb]
-            end = pidx.bucket_starts[l_idx[None, :], qb + 1]
-            sizes = jnp.minimum(end - start, 200)
-            qv = qs / jnp.linalg.norm(qs, axis=1, keepdims=True)
-            outs = {}
-            for fuse in (False, True):
-                d_, a_ = slab_window_dots(
-                    pidx.packed, None, start, sizes, qv, per_table=200,
-                    interpret=True, fuse_l=fuse,
-                )
-                outs[fuse] = (np.asarray(d_), np.asarray(a_))
-            np.testing.assert_array_equal(outs[False][1], outs[True][1])
-            np.testing.assert_array_equal(outs[False][0], outs[True][0])

@@ -131,7 +131,7 @@ def test_routed_retrieve_topk_recall_and_accounting():
     assert stats["dropped_requests"] == 0
     assert stats["replication_factor"] <= 6.0
     assert 1.0 <= stats["mean_destinations_per_query"] <= 8.0
-    # ICI traffic accounting (VERDICT r4 weak #5): request leg carries the
+    # interconnect traffic accounting: request leg carries the
     # query f32 vector + L bucket ids + L fingerprints + a validity byte,
     # return leg carries top_k (score, gid) pairs, each times the mean
     # destination count; the wire number (fixed-cap all_to_all buffers)

@@ -28,7 +28,7 @@ def _rating_set(key, n, c):
 def test_mask_vs_csr_parity():
     n, c = 400, 12
     users = _rating_set(jax.random.PRNGKey(0), n, c)
-    base = RecConfig(k=4, L=5, candidate_budget=n, use_pallas=False)
+    base = RecConfig(k=4, L=5, candidate_budget=n)
     key = jax.random.PRNGKey(3)
 
     rec_mask = lsh_phase(key, users, users, base.replace(engine="mask"),
@@ -70,7 +70,7 @@ def test_auto_picks_csr_when_mask_large(monkeypatch):
     # lower the threshold so this 600x600 case trips the auto switch
     monkeypatch.setattr(pl, "AUTO_MASK_MAX_ELEMS", 600 * 600 - 1)
     users = _rating_set(jax.random.PRNGKey(1), 600, 8)
-    cfg = RecConfig(k=4, L=3, candidate_budget=600, use_pallas=False,
+    cfg = RecConfig(k=4, L=3, candidate_budget=600,
                     engine="auto")
     rec = pl.lsh_phase(jax.random.PRNGKey(2), users, users, cfg,
                        top_n=3, top_p=8)
@@ -91,7 +91,7 @@ def test_fused_engine_matches_mask():
     bucket (f32 slabs => exact same similarities)."""
     n, c = 300, 10
     users = _rating_set(jax.random.PRNGKey(5), n, c)
-    base = RecConfig(k=4, L=4, candidate_budget=n, use_pallas=False)
+    base = RecConfig(k=4, L=4, candidate_budget=n)
     key = jax.random.PRNGKey(8)
     rec_mask = lsh_phase(key, users, users, base.replace(engine="mask"),
                          top_n=4, top_p=8)

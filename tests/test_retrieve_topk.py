@@ -145,8 +145,9 @@ def test_packed_rejects_oversized_window():
     x = jnp.asarray(_clustered(128, 8))
     idx = build_index(KEY, x, "cosine", k=3, L=2, lsh_bucket_div=4, euclidean_h_w=1.0)
     pidx = pack_index(idx, x, pad=16)  # rounded up to a 512 multiple -> 384
+    # per_table=400 needs a 512-row window past the last row (> 384 pad)
     with pytest.raises(ValueError, match="per_table"):
-        retrieve_topk(pidx, x[:4], x, top_k=3, per_table=200)
+        retrieve_topk(pidx, x[:4], x, top_k=3, per_table=400)
 
 
 def test_packed_int8_matches_unpacked():

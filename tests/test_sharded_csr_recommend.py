@@ -1,4 +1,4 @@
-"""Pod-scale CF over the sharded CSR index vs the single-device engine."""
+"""Sharded CF over the sharded CSR index vs the single-device engine."""
 
 import numpy as np
 import jax
@@ -163,7 +163,7 @@ def test_sharded_recommend_scored_kernel_engine():
         mesh, sharded,
         jnp.asarray(qr), jnp.asarray(qk), jnp.asarray(qm.astype(np.float32)),
         shard_corpus(mesh, jnp.asarray(nr)), nm_sh,
-        top_p=6, top_n=3, per_table=64, pallas_interpret=True,
+        top_p=6, top_n=3, per_table=64,
     )
     assert pred.shape == (q, c)
     assert np.asarray(has).all()
@@ -213,7 +213,7 @@ def test_sharded_recommend_scored_int8_dequant():
         mesh, sharded,
         jnp.asarray(qr), jnp.asarray(qk), jnp.asarray(qm),
         shard_corpus(mesh, jnp.asarray(nr)), nm_sh,
-        top_p=6, top_n=3, per_table=64, pallas_interpret=True,
+        top_p=6, top_n=3, per_table=64,
     )
     g = np.asarray(gids)
     assert (g[:, 0] == target).all()
@@ -258,7 +258,7 @@ def test_sharded_recommend_scored_euclidean_augmented():
         mesh, sharded,
         jnp.asarray(qr), jnp.asarray(qk), jnp.asarray(qm),
         shard_corpus(mesh, jnp.asarray(nr)), nm_sh,
-        top_p=6, top_n=3, per_table=64, pallas_interpret=True,
+        top_p=6, top_n=3, per_table=64,
     )
     assert np.asarray(has).all()
     g = np.asarray(gids)

@@ -174,40 +174,61 @@ def test_sharded_packed_int8_rerank_matches_unpacked():
 
 
 def test_sharded_pallas_leg_matches_xla():
-    """The fused slab-score kernel inside the shard_map (per-shard leg of
-    sharded_retrieve_topk, interpret mode) returns the same merged top-k
-    as the per-shard XLA packed core — bf16 and global-scale int8."""
+    """The windowed slab dots inside the shard_map (per-shard leg of
+    sharded_retrieve_topk) return the same merged top-k as the per-shard
+    XLA packed core merged by hand — bf16 and global-scale int8."""
+    from crypto_rec_tpu.models.lsh.index import (
+        packed_retrieve_core, rerank_exact,
+    )
     from crypto_rec_tpu.parallel.sharded_index import pack_sharded_index
 
     mesh = make_mesh((1, 8))
-    n, d, q = 8 * 512, 128, 16   # d % 128 == 0: kernel eligibility
+    n, d, q, top_k = 8 * 512, 128, 16, 8
     corpus_np = _clustered(n, d)
     corpus = shard_corpus(mesh, jnp.asarray(corpus_np))
     queries = jnp.asarray(
         corpus_np[:q] + 0.01 * RNG.normal(size=(q, d)).astype(np.float32)
     )
     index = build_sharded_index(mesh, KEY, corpus, "cosine", k=5, L=4)
+    qb = index.family.bucket_ids(queries)
     for dtype in (jnp.bfloat16, jnp.int8):
         pidx = pack_sharded_index(mesh, index, corpus, dtype=dtype, pad=1024)
-        assert pidx.packed_scale is None  # kernel-eligible (scale-free)
-        xs, xi = sharded_retrieve_topk(
-            mesh, pidx, queries, corpus, budget=256, top_k=8, per_table=256,
-            use_pallas=False,
-        )
+        assert pidx.packed_scale is None  # scale-free: the windowed leg
+        # reference: the blocked XLA core on each shard's slabs, int8
+        # survivors reranked exactly (as the sharded engine does), then the
+        # global top-k over all shards
+        quantized = dtype == jnp.int8
+        n_local = pidx.n_local
+        vals, gids = [], []
+        for sh in range(pidx.n_shards):
+            core_k = 4 * top_k if quantized else top_k
+            s_, i_ = packed_retrieve_core(
+                pidx.packed[sh], pidx.packed_rows[sh], None, None,
+                pidx.bucket_starts[sh], n_local, "cosine", queries, qb, None,
+                core_k, 256,
+            )
+            if quantized:
+                blk = jnp.asarray(corpus_np[sh * n_local:(sh + 1) * n_local])
+                s_, i_ = rerank_exact(blk, "cosine", queries, i_, top_k)
+            vals.append(np.asarray(s_))
+            gids.append(np.where(np.asarray(i_) >= 0,
+                                 np.asarray(i_) + sh * n_local, -1))
+        vals, gids = np.concatenate(vals, 1), np.concatenate(gids, 1)
+        order = np.argsort(-vals, axis=1, kind="stable")[:, :top_k]
+        xs = np.take_along_axis(vals, order, 1)
+        xi = np.take_along_axis(gids, order, 1)
         ps, pi = sharded_retrieve_topk(
-            mesh, pidx, queries, corpus, budget=256, top_k=8, per_table=256,
-            use_pallas=True, pallas_interpret=True,
+            mesh, pidx, queries, corpus, budget=256, top_k=top_k,
+            per_table=256,
         )
-        xs, xi, ps, pi = map(np.asarray, (xs, xi, ps, pi))
-        # both paths score slab-dtype-rounded with f32 accumulation, but in
-        # different orders — genuine near-ties may permute.  Any slot where
-        # the ids differ must be a tie within the slab rounding band.
+        ps, pi = np.asarray(ps), np.asarray(pi)
+        # the windowed leg's maskless windows only ADD candidates and its
+        # f32 products differ from the core's slab-dtype einsum, so genuine
+        # near-ties may permute: any slot where the ids differ must be a
+        # tie within the slab rounding band
         xn = corpus_np / np.linalg.norm(corpus_np, axis=1, keepdims=True)
         qn = np.asarray(queries)
         qn = qn / np.linalg.norm(qn, axis=1, keepdims=True)
-        # the XLA leg einsums in the slab dtype, the kernel leg multiplies
-        # in exact f32 — a sizeable fraction of slots may permute, but each
-        # must be a genuine near-tie (the per-slot band check below)
         diff = xi != pi
         assert diff.mean() < 0.25, f"{dtype}: {diff.mean():.3f} ids differ"
         for qi, slot in zip(*np.where(diff)):
@@ -244,7 +265,7 @@ def test_sharded_euclidean_augmented_kernel_leg():
         vals, gids = sharded_retrieve_topk(
             mesh, pidx, jnp.asarray(queries),
             shard_corpus(mesh, jnp.asarray(corpus)),
-            budget=128, top_k=5, per_table=128, pallas_interpret=True,
+            budget=128, top_k=5, per_table=128,
         )
         gids = np.asarray(gids)
         assert (gids[:, 0] == target).all(), dt

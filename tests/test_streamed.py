@@ -50,8 +50,7 @@ def test_streamed_matches_oracle_recall():
     assert sidx.n_chunks == 4
     stats = {}
     vals, ids = streamed_retrieve_topk(
-        sidx, jnp.asarray(queries), top_k=tk, per_table=256,
-        use_pallas=False, stats=stats,
+        sidx, jnp.asarray(queries), top_k=tk, per_table=256, stats=stats,
     )
     vals, ids = np.asarray(vals), np.asarray(ids)
     assert ids.max() < n
@@ -81,10 +80,8 @@ def test_streamed_short_last_chunk_and_determinism():
         jax.random.PRNGKey(9), src, n_rows=n, dim=d, k=5, L=4, n_chunks=3,
     )
     queries = jnp.asarray(base[:q])
-    v1, i1 = streamed_retrieve_topk(sidx, queries, top_k=tk, per_table=128,
-                                    use_pallas=False)
-    v2, i2 = streamed_retrieve_topk(sidx, queries, top_k=tk, per_table=128,
-                                    use_pallas=False)
+    v1, i1 = streamed_retrieve_topk(sidx, queries, top_k=tk, per_table=128)
+    v2, i2 = streamed_retrieve_topk(sidx, queries, top_k=tk, per_table=128)
     np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
     # self-query: the row itself must come back first with sim ~1
     assert (np.asarray(i1)[:, 0] == np.arange(q)).all()
